@@ -13,21 +13,21 @@ tests-all:
 
 # Branch coverage on the fast tier (reference parity: pyproject.toml:38-39
 # runs coverage on every test invocation).  Needs pytest-cov (an extra —
-# `pip install arnoldi-tpu[coverage]`); config in [tool.coverage.*].
+# `pip install arnoldi-jax[coverage]`); config in [tool.coverage.*].
 coverage:
 	@python -c "import pytest_cov" 2>/dev/null \
 	  || { echo "pytest-cov not installed (pip install -e .[coverage])"; exit 1; }
 	python -m pytest tests -q -m "not slow" --cov --cov-branch --cov-report=term
 
 lint:
-	-ruff check arnoldi_tpu tests bench.py __graft_entry__.py
+	-ruff check arnoldi_jax tests bench.py __graft_entry__.py
 
 native:
-	python -c "from arnoldi_tpu.native import dense_tier as d; assert d.available(); print('native dense tier built:', d._LIB_PATH)"
+	python -c "from arnoldi_jax.native import dense_tier as d; assert d.available(); print('native dense tier built:', d._LIB_PATH)"
 
 bench:
 	python bench.py
 
 clean:
-	rm -rf build *.egg-info arnoldi_tpu/native/libdense_tier.so
+	rm -rf build *.egg-info arnoldi_jax/native/libdense_tier.so
 	find . -name __pycache__ -type d -exec rm -rf {} +

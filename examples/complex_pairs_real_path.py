@@ -1,13 +1,13 @@
 """Dominant COMPLEX conjugate pairs through the REAL-arithmetic path.
 
 A real nonsymmetric operator with local circulation (convection/rotation
-physics) has complex eigenvalues — but the TPU backend has no complex
-dtypes.  `partial_schur`'s real path carries conjugate pairs as 2x2
+physics) has complex eigenvalues, yet real arithmetic suffices for them:
+`partial_schur`'s real path carries conjugate pairs as 2x2
 blocks in a REAL Schur form (the mode the reference implementation
 xfails, `src/arnoldi/utils.py:64-65`); eigenpairs come out complex from
-the post-processing.  At the 1M-row scale this runs on-chip in f32 +
-double-word refinement (`python bench.py complexpairs`); this example is
-the small CPU version of the same pipeline.
+the post-processing.  At the 1M-row scale the same pipeline runs in
+`python bench.py complexpairs` and in `chip_smoke.py`'s ks_complexpairs
+phase; this example is the small version.
 
 Run: python examples/complex_pairs_real_path.py
 """
@@ -19,9 +19,9 @@ jax.config.update("jax_enable_x64", True)
 
 import numpy as np
 
-from arnoldi_tpu import eigenpairs_from_partial_schur, partial_schur
-from arnoldi_tpu.matrices import random_scattered_complex_pairs
-from arnoldi_tpu.utils.sorting import arg_largest_real
+from arnoldi_jax import eigenpairs_from_partial_schur, partial_schur
+from arnoldi_jax.matrices import random_scattered_complex_pairs
+from arnoldi_jax.utils.sorting import arg_largest_real
 
 n = 20_000
 # Three dominant conjugate pairs d_j +/- i w_j above a real bulk.

@@ -1,9 +1,9 @@
 """Row-partitioned solve over a device mesh.
 
-On a real multi-chip slice this uses all chips; for a laptop/CI demo it
-forces 8 virtual CPU devices.
+Uses every device of the default platform (e.g. four GPUs).  Without
+several accelerators, run it on 8 virtual CPU devices:
 
-    python examples/distributed_mesh.py
+    JAX_PLATFORMS=cpu python examples/distributed_mesh.py
 """
 
 import os
@@ -17,17 +17,15 @@ if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", "")
 import numpy as np
 import jax
 
-# Prefer the accelerator mesh when it has >= 2 chips; otherwise demo on the
-# virtual CPU devices. (The platform locks once devices are queried, so the
-# choice must be made up front.)
+jax.config.update("jax_enable_x64", True)
 _devs = jax.devices()
 if len(_devs) < 2:
-    _devs = jax.devices("cpu")
-jax.config.update("jax_enable_x64", _devs[0].platform != "tpu")
+    raise SystemExit(f"need >= 2 {_devs[0].platform} devices; on the CPU run "
+                     "with JAX_PLATFORMS=cpu")
 
-from arnoldi_tpu import as_operator
-from arnoldi_tpu.matrices import laplace, laplace_eigen, mark
-from arnoldi_tpu.parallel import (
+from arnoldi_jax import as_operator
+from arnoldi_jax.matrices import laplace, laplace_eigen, mark
+from arnoldi_jax.parallel import (
     banded_matvec_halo,
     make_mesh,
     shard_operator,
@@ -42,7 +40,7 @@ def main():
     # Krylov-Schur with the operator + basis row-partitioned (GSPMD inserts
     # the psum for every Gram-Schmidt reduction).
     A = mark(50)
-    tol = 3e-4 if mesh.devices[0].platform == "tpu" else 1e-8
+    tol = 1e-8
     Q, T, hist = sharded_partial_schur(
         A, 5, mesh=mesh, sort_function="LR", stopping_criterion=tol,
         max_restarts=2000,

@@ -8,16 +8,14 @@ import numpy as np
 
 import jax
 
-if jax.default_backend() != "tpu":
-    jax.config.update("jax_enable_x64", True)
+jax.config.update("jax_enable_x64", True)
 
-from arnoldi_tpu import eigsh, partial_eigh, svds
-from arnoldi_tpu.matrices import laplace_2d, laplace_2d_eigen
+from arnoldi_jax import eigsh, partial_eigh, svds
+from arnoldi_jax.matrices import laplace_2d, laplace_2d_eigen
 
 
 def main():
-    on_tpu = jax.default_backend() == "tpu"
-    tol = 3e-4 if on_tpu else 1e-9
+    tol = 1e-9
 
     # Smallest eigenvalues of a 2-D Laplacian — block mode finds the
     # degenerate pairs of the square grid that scalar Krylov cannot.
@@ -41,8 +39,7 @@ def main():
 
     # Partial SVD of a random rectangular matrix.
     rng = np.random.default_rng(0)
-    M = rng.standard_normal((300, 120)).astype(
-        np.float32 if on_tpu else np.float64)
+    M = rng.standard_normal((300, 120))
     U, s, Vh = svds(M, 5, tol=tol, maxiter=5000)
     ref = np.linalg.svd(M, compute_uv=False)[:5]
     print("svds:", np.round(s[::-1], 5))

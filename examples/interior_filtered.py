@@ -2,7 +2,7 @@
 
 Shift-invert (the classical interior route, scipy ``eigsh(sigma=...)``)
 needs a sparse LU — infeasible for 3-D stencils (fill ~O(n g^2)) and
-unavailable on accelerators.  The polynomial-filtered drivers need only
+host-bound.  The polynomial-filtered drivers need only
 matvecs:
 
     python examples/interior_filtered.py
@@ -11,12 +11,11 @@ matvecs:
 import numpy as np
 import jax
 
-from arnoldi_tpu import eigsh_filtered, eigsh_window
-from arnoldi_tpu.matrices import laplace_3d, laplace_3d_eigen
-from arnoldi_tpu.solvers.filtered import estimate_window_count
+from arnoldi_jax import eigsh_filtered, eigsh_window
+from arnoldi_jax.matrices import laplace_3d, laplace_3d_eigen
+from arnoldi_jax.solvers.filtered import estimate_window_count
 
-if jax.default_backend() != "tpu":
-    jax.config.update("jax_enable_x64", True)
+jax.config.update("jax_enable_x64", True)
 
 g = 24                      # 3-D grid -> n = 13824
 A = laplace_3d(g)

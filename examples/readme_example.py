@@ -2,7 +2,7 @@
 end to end: solve, eigen post-processing, residual check, ARPACK
 cross-validation.
 
-Run on CPU (complex128-grade):
+Runs on the default device (GPU or CPU), complex128-grade:
     python examples/readme_example.py
 """
 
@@ -10,17 +10,15 @@ import numpy as np
 
 import jax
 
-if jax.default_backend() != "tpu":
-    jax.config.update("jax_enable_x64", True)
+jax.config.update("jax_enable_x64", True)
 
-from arnoldi_tpu import partial_schur
-from arnoldi_tpu.matrices import mark
-from arnoldi_tpu import eigenpairs_from_partial_schur
+from arnoldi_jax import partial_schur
+from arnoldi_jax.matrices import mark
+from arnoldi_jax import eigenpairs_from_partial_schur
 
 
 def main():
-    on_tpu = jax.default_backend() == "tpu"
-    tol = 3e-4 if on_tpu else 1e-8
+    tol = 1e-8
 
     A = mark(50)  # n = 1275 Markov walk matrix
     Q, T, history = partial_schur(

@@ -138,51 +138,6 @@ def main(argv=None):
                 f"ref head-to-head ({tag}): a krylov-schur row is not "
                 f"faster than the reference (max ratio {max_e:.2f})")
 
-    # Scale-artifact claims: the README quotes wall seconds and speedups
-    # from the per-round JSON artifacts; recompute each quoted figure.
-    import json
-
-    def artifact(name):
-        cands = sorted(glob.glob(str(REPO / f"artifacts/{name}_r*.json")))
-        if not cands:
-            return None
-        with open(cands[-1]) as f:
-            return json.load(f)
-
-    a4 = artifact("scattered_4m")
-    if a4:
-        expect("4M wall", rf"\*\*{a4['value']:.1f} s\*\*")
-        expect("4M speedup", rf"\*\*{a4['vs_baseline']:.1f}x\*\*")
-        print(f"  4M: {a4['value']:.1f} s, {a4['vs_baseline']:.1f}x")
-    a1 = artifact("scattered_1m")
-    if a1:
-        expect("1M wall", rf"\*\*{a1['value']:.2f} s\*\*")
-        print(f"  1M: {a1['value']:.2f} s, {a1['vs_baseline']:.1f}x")
-    cp = artifact("complex_pairs_1m")
-    if cp:
-        expect("complex-pairs wall", rf"\*\*{cp['value']:.2f} s\*\*")
-        if not cp.get("all_complex"):
-            failures.append("complex-pairs artifact: not all returned "
-                            "eigenvalues are complex")
-        print(f"  complex pairs: {cp['value']:.2f} s, all_complex="
-              f"{cp.get('all_complex')}")
-    sv = artifact("svds_1m")
-    if sv:
-        expect("svds wall", rf"\*\*{sv['value']:.1f} s\*\*")
-        print(f"  svds: {sv['value']:.1f} s, {sv['vs_baseline']:.1f}x")
-    i64 = artifact("interior_3d_g64")
-    if i64:
-        expect("interior g64 wall", rf"\*\*{i64['value']:.0f} s ON-CHIP\*\*")
-        if not i64.get("complete"):
-            failures.append("interior g64 artifact: incomplete window")
-        print(f"  interior g64: {i64['value']:.0f} s complete="
-              f"{i64.get('complete')}")
-    i80 = artifact("interior_3d_g80")
-    if i80:
-        expect("interior g80 wall", rf"{i80['value']:.0f} s, 54/54 complete")
-        print(f"  interior g80: {i80['value']:.0f} s complete="
-              f"{i80.get('complete')}")
-
     if failures:
         print("\nCLAIM DRIFT — README does not reproduce from the artifact:",
               file=sys.stderr)

@@ -10,8 +10,8 @@ fill, run ``eigsh_window`` on the same window, and extrapolate the LU
 memory to the bench grids (g=64/80) where shift-invert stops being
 runnable on any reasonable host.
 
-Writes one JSON artifact:  ``python scripts/interior_crossover.py
-artifacts/interior_crossover_r04.json [gmax]``
+Prints one JSON document:  ``python scripts/interior_crossover.py [gmax]``
+(host CPU, float64).
 """
 
 import json
@@ -30,8 +30,8 @@ def run_grid(g, nev=20):
     import scipy.sparse as sp
     import scipy.sparse.linalg as spla
 
-    from arnoldi_tpu import eigsh_window
-    from arnoldi_tpu.matrices import laplace_3d, laplace_3d_eigen
+    from arnoldi_jax import eigsh_window
+    from arnoldi_jax.matrices import laplace_3d, laplace_3d_eigen
 
     A = laplace_3d(g)
     n = A.shape[0]
@@ -97,8 +97,7 @@ def run_grid(g, nev=20):
 
 
 def main():
-    out = sys.argv[1] if len(sys.argv) > 1 else "interior_crossover.json"
-    gmax = int(sys.argv[2]) if len(sys.argv) > 2 else 48
+    gmax = int(sys.argv[1]) if len(sys.argv) > 1 else 48
     grids = [g for g in (24, 32, 48) if g <= gmax]
     rows = [run_grid(g) for g in grids]
     # Extrapolate the LU bytes ~ c * n * g^2 to the bench grids.
@@ -118,8 +117,6 @@ def main():
                 "extrapolated LU no longer fits ordinary hosts at the "
                 "bench grids g=64/80.",
     }
-    with open(out, "w") as f:
-        json.dump(doc, f, indent=2)
     print(json.dumps(doc, indent=2))
 
 

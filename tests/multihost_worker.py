@@ -1,7 +1,7 @@
 """Multi-process worker for test_multihost_spawn.py (NOT a pytest file).
 
 Each spawned process initializes ``jax.distributed`` against a localhost
-coordinator (gloo CPU collectives), builds the ICI-major slice mesh, runs a
+coordinator (gloo CPU collectives), builds the host-major slice mesh, runs a
 REAL sharded ``partial_schur`` over the multi-process mesh, and validates:
 
 * mesh device ordering is process-major (``make_slice_mesh`` contract),
@@ -33,7 +33,7 @@ def main():
 
     import numpy as np
 
-    from arnoldi_tpu.parallel import multihost
+    from arnoldi_jax.parallel import multihost
 
     multihost.initialize(f"127.0.0.1:{port}", num_processes=nproc,
                          process_id=pid)
@@ -44,7 +44,7 @@ def main():
     procs = [d.process_index for d in mesh.devices.flat]
     assert procs == sorted(procs), f"mesh not process-major: {procs}"
 
-    from arnoldi_tpu.matrices import mark
+    from arnoldi_jax.matrices import mark
 
     A = mark(40)
     n = A.shape[0]
@@ -61,8 +61,8 @@ def main():
     for i in range(1, nproc):
         assert ranges[i, 0] == ranges[i - 1, 1], ranges
 
-    from arnoldi_tpu import partial_schur
-    from arnoldi_tpu.utils.sorting import sort_function_for
+    from arnoldi_jax import partial_schur
+    from arnoldi_jax.utils.sorting import sort_function_for
 
     Q, T, hist = partial_schur(
         A, 5, max_dim=20, stopping_criterion=1e-8,
@@ -112,9 +112,9 @@ def main():
     # distributed matvec (shard_map + ppermute) with its halo legs now
     # crossing processes, validated elementwise against scipy and
     # structurally against the HLO (collective-permute, no all-gather).
-    from arnoldi_tpu.linop import as_operator
-    from arnoldi_tpu.matrices import laplace
-    from arnoldi_tpu.parallel import halo_matvec_closure, shard_operator
+    from arnoldi_jax.linop import as_operator
+    from arnoldi_jax.matrices import laplace
+    from arnoldi_jax.parallel import halo_matvec_closure, shard_operator
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     n_h = 1024
@@ -136,13 +136,13 @@ def main():
     assert np.allclose(y, Ah @ xs, atol=1e-12), np.abs(y - Ah @ xs).max()
 
     # Full Hermitian solve THROUGH the cross-process halo operator.
-    from arnoldi_tpu import partial_eigh
+    from arnoldi_jax import partial_eigh
 
     vals_h, _, _ = partial_eigh(
         hop, 3, which="LA", mesh=mesh, dtype=np.float64,
         stopping_criterion=1e-9, max_restarts=2000, max_dim=20,
         key=jax.random.key(4), refine=None)
-    from arnoldi_tpu.matrices import laplace_eigen
+    from arnoldi_jax.matrices import laplace_eigen
 
     want_h = np.sort(laplace_eigen(n_h))[-3:][::-1]
     assert np.allclose(np.asarray(vals_h), want_h, atol=1e-8), (

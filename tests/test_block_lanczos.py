@@ -7,9 +7,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from arnoldi_tpu import partial_eigh
-from arnoldi_tpu.matrices import laplace, laplace_2d, laplace_2d_eigen, laplace_eigen
-from arnoldi_tpu.ops.ortho import block_cgs2
+from arnoldi_jax import partial_eigh
+from arnoldi_jax.matrices import laplace, laplace_2d, laplace_2d_eigen, laplace_eigen
+from arnoldi_jax.ops.ortho import block_cgs2
 
 norm = np.linalg.norm
 
@@ -85,7 +85,7 @@ class TestBlockPartialEigh:
         np.testing.assert_allclose(np.sort(vals), want, atol=5e-3)
 
     def test_eigsh_block_size(self):
-        from arnoldi_tpu import eigsh
+        from arnoldi_jax import eigsh
 
         A = laplace_2d(12)
         want = np.sort(laplace_2d_eigen(12))[:4]
@@ -94,7 +94,7 @@ class TestBlockPartialEigh:
         np.testing.assert_allclose(np.sort(vals), want, rtol=1e-8, atol=1e-8)
 
     def test_sharded_block(self):
-        from arnoldi_tpu.parallel import make_mesh
+        from arnoldi_jax.parallel import make_mesh
 
         mesh = make_mesh(8)
         A = laplace_2d(16)  # n = 256
@@ -116,7 +116,7 @@ class TestBlockKrylovSchur:
         Qo, _ = np.linalg.qr(rng.standard_normal((n, n)))
         A = Qo.T @ np.diag(d) @ Qo
 
-        from arnoldi_tpu import partial_schur
+        from arnoldi_jax import partial_schur
 
         Q, T, h = partial_schur(
             A, 3, max_dim=20, sort_function="LR", max_restarts=1000,
@@ -132,8 +132,8 @@ class TestBlockKrylovSchur:
         import scipy.sparse.linalg as spla
         from scipy.optimize import linear_sum_assignment
 
-        from arnoldi_tpu import partial_schur
-        from arnoldi_tpu.matrices import mark
+        from arnoldi_jax import partial_schur
+        from arnoldi_jax.matrices import mark
 
         A = mark(10)
         Q, T, _ = partial_schur(
@@ -158,7 +158,7 @@ class TestBlockKrylovSchur:
         Qo, _ = np.linalg.qr(rng.standard_normal((n, n)))
         A = Qo.T @ D @ Qo
 
-        from arnoldi_tpu import partial_schur
+        from arnoldi_jax import partial_schur
 
         with pytest.raises(ValueError, match="saturated|Has not converged"):
             partial_schur(A, 3, max_dim=6, sort_function="LR",

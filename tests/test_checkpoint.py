@@ -7,10 +7,10 @@ import pytest
 
 import jax
 
-from arnoldi_tpu import partial_schur
-from arnoldi_tpu.matrices import mark
-from arnoldi_tpu.utils.checkpoint import load_checkpoint
-from arnoldi_tpu.utils.sorting import arg_largest_real
+from arnoldi_jax import partial_schur
+from arnoldi_jax.matrices import mark
+from arnoldi_jax.utils.checkpoint import load_checkpoint
+from arnoldi_jax.utils.sorting import arg_largest_real
 
 norm = np.linalg.norm
 
@@ -100,7 +100,7 @@ def test_resume_accepts_full_workspace_checkpoint(tmp_path):
     # head rows; resume must slice rather than assert.
     import dataclasses
 
-    from arnoldi_tpu.utils.checkpoint import RestartCheckpoint, save_checkpoint
+    from arnoldi_jax.utils.checkpoint import RestartCheckpoint, save_checkpoint
 
     A = mark(15)
     n = A.shape[0]
@@ -167,8 +167,8 @@ def test_sharded_checkpoint_resume_under_mesh(tmp_path):
     only (never a gathered full workspace) and resumes bit-compatibly."""
     import os
 
-    from arnoldi_tpu.parallel.mesh import make_mesh
-    from arnoldi_tpu.utils.checkpoint import (checkpoint_is_sharded,
+    from arnoldi_jax.parallel.mesh import make_mesh
+    from arnoldi_jax.utils.checkpoint import (checkpoint_is_sharded,
                                               load_checkpoint)
 
     A = mark(15)  # n = 120
@@ -220,7 +220,7 @@ def test_sharded_checkpoint_reshards_across_mesh_shapes(tmp_path, n_save,
     """Mesh-ELASTIC resume: an N-way checkpoint loads into an M-way mesh
     (lose a host and resume on the survivors, or resume wider), including
     when the two meshes pad the row dimension differently."""
-    from arnoldi_tpu.parallel.mesh import make_mesh
+    from arnoldi_jax.parallel.mesh import make_mesh
 
     A = mark(15)  # n = 120
     kwargs = dict(
@@ -258,8 +258,8 @@ def test_sharded_checkpoint_rejects_stale_generation_shards(tmp_path):
     each save deletes surplus shard files beyond the process count."""
     import os
 
-    from arnoldi_tpu.parallel.mesh import make_mesh
-    from arnoldi_tpu.utils.checkpoint import (RestartCheckpoint,
+    from arnoldi_jax.parallel.mesh import make_mesh
+    from arnoldi_jax.utils.checkpoint import (RestartCheckpoint,
                                               load_checkpoint_sharded,
                                               save_checkpoint_sharded)
 

@@ -10,13 +10,13 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from arnoldi_tpu.solvers.decomposition import (
+from arnoldi_jax.solvers.decomposition import (
     RitzDecomposition,
     arnoldi_decomposition,
     arnoldi_expand,
 )
-from arnoldi_tpu.matrices import laplace, mark
-from arnoldi_tpu.utils.random import rand_normalized_vector
+from arnoldi_jax.matrices import laplace, mark
+from arnoldi_jax.utils.random import rand_normalized_vector
 
 from common import ATOL, RTOL, assert_invariants
 
@@ -214,11 +214,11 @@ class TestSegmentedExpansion:
         import jax
         import jax.numpy as jnp
 
-        from arnoldi_tpu.linop import as_operator
-        from arnoldi_tpu.matrices import mark
-        from arnoldi_tpu.solvers.decomposition import (_expand_jit,
+        from arnoldi_jax.linop import as_operator
+        from arnoldi_jax.matrices import mark
+        from arnoldi_jax.solvers.decomposition import (_expand_jit,
                                                        _expand_segmented_jit)
-        from arnoldi_tpu.utils.random import rand_normalized_vector
+        from arnoldi_jax.utils.random import rand_normalized_vector
 
         op = as_operator(mark(40))  # n=820
         n = op.shape[0]
@@ -247,8 +247,8 @@ class TestSegmentedExpansion:
     def test_breakdown_crosses_segments(self):
         import jax.numpy as jnp
 
-        from arnoldi_tpu.linop import as_operator
-        from arnoldi_tpu.solvers.decomposition import _expand_segmented_jit
+        from arnoldi_jax.linop import as_operator
+        from arnoldi_jax.solvers.decomposition import _expand_segmented_jit
 
         # rank-2 operator: breakdown at iteration 2, segments keep running
         # dead and n_iter reports the breakdown point.

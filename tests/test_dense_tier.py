@@ -5,8 +5,8 @@ and triangular eigenvector back-substitution."""
 import numpy as np
 import pytest
 
-from arnoldi_tpu.ops import dense_tier
-from arnoldi_tpu.ops.dense_tier import (
+from arnoldi_jax.ops import dense_tier
+from arnoldi_jax.ops.dense_tier import (
     eig_from_schur,
     move_eigenvalue,
     ordered_schur,
@@ -68,7 +68,7 @@ class TestOrderedSchur:
         ref_vals = np.sort_complex(np.linalg.eigvals(A))
 
         for which in ("LM", "LR", "SM"):
-            from arnoldi_tpu.utils.sorting import sort_function_for
+            from arnoldi_jax.utils.sorting import sort_function_for
 
             sf = sort_function_for(which)
             T, Q = ordered_schur(A, sort_function=sf)

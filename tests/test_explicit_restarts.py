@@ -9,12 +9,12 @@ import pytest
 import scipy.sparse as sp
 from scipy.sparse.linalg import eigs
 
-from arnoldi_tpu.solvers.explicit_restarts import (
+from arnoldi_jax.solvers.explicit_restarts import (
     explicit_restarts_with_deflation,
     naive_explicit_restarts,
 )
-from arnoldi_tpu.matrices import mark
-from arnoldi_tpu.utils.sorting import arg_largest_real
+from arnoldi_jax.matrices import mark
+from arnoldi_jax.utils.sorting import arg_largest_real
 
 from common import find_best_matching
 
@@ -109,11 +109,11 @@ def test_deflation_completeness_backstop_tight_window():
     true top set (up to boundary ties)."""
     import jax
 
-    from arnoldi_tpu.harness.suite import (EigensolverParameters,
+    from arnoldi_jax.harness.suite import (EigensolverParameters,
                                            arpack_eig, deflation_eig,
                                            eigenvalues_match)
-    from arnoldi_tpu.matrices import mark
-    from arnoldi_tpu.utils.random import rand_normalized_vector
+    from arnoldi_jax.matrices import mark
+    from arnoldi_jax.utils.random import rand_normalized_vector
 
     A = mark(40)   # n = 861: fast, same +/- tied-pair structure
     params = EigensolverParameters(nev=8, ncv=16, tol=1e-8,

@@ -2,7 +2,7 @@
 
 The capability the reference reaches only through shift-invert (ARPACK
 sigma mode, scripts/compare-against-arpack.py flags) — here via polynomial
-filtering, the no-factorization TPU route; validated against the analytic
+filtering, the no-factorization route; validated against the analytic
 Laplacian spectra and the shift-invert driver itself.
 """
 
@@ -10,9 +10,9 @@ import jax
 import numpy as np
 import pytest
 
-from arnoldi_tpu import eigsh, eigsh_filtered, eigsh_window
-from arnoldi_tpu.matrices import laplace, laplace_2d, laplace_eigen
-from arnoldi_tpu.solvers.filtered import (
+from arnoldi_jax import eigsh, eigsh_filtered, eigsh_window
+from arnoldi_jax.matrices import laplace, laplace_2d, laplace_eigen
+from arnoldi_jax.solvers.filtered import (
     cheby_filter,
     estimate_window_count,
     jackson_cheby_coeffs,
@@ -63,7 +63,7 @@ class TestPieces:
         coeffs = jackson_cheby_coeffs(0.5, 1.5, lmin, lmax, 80)
         X = rng.standard_normal((4, n))
         got = np.asarray(cheby_filter(
-            __import__("arnoldi_tpu").linop.as_operator(A, dtype=np.float64),
+            __import__("arnoldi_jax").linop.as_operator(A, dtype=np.float64),
             np.asarray(X), coeffs, lmin, lmax))
         # dense evaluation through the eigenbasis
         t = (lam - 0.5 * (lmax + lmin)) / (0.5 * (lmax - lmin))
@@ -82,8 +82,8 @@ class TestPieces:
         # (gain << 0.5).  This is the deterministic completeness gate the
         # all-inside mode relies on when a stalled pending pair must be
         # classified.
-        from arnoldi_tpu.linop import as_operator
-        from arnoldi_tpu.solvers.filtered import _filter_gains
+        from arnoldi_jax.linop import as_operator
+        from arnoldi_jax.solvers.filtered import _filter_gains
 
         rng = np.random.default_rng(11)
         n = 80
@@ -114,11 +114,11 @@ class TestPieces:
         # high-degree moment vector matches the direct lower-degree count
         # (same probes/key => identical recurrence prefix), and counts
         # derived from one mu are accurate across disjoint windows.
-        from arnoldi_tpu.solvers.filtered import (
+        from arnoldi_jax.solvers.filtered import (
             count_from_moments,
             spectral_moments,
         )
-        from arnoldi_tpu.linop import as_operator
+        from arnoldi_jax.linop import as_operator
 
         n = 300
         op = as_operator(laplace(n).tocsr(), dtype=np.float64)
@@ -147,7 +147,7 @@ class TestPieces:
         # {s, s/2, s/4, ..., >=32} (each distinct count is a fresh remote
         # degree-N compile — r05), None for all-active / first sweep,
         # empty for everything locked.
-        from arnoldi_tpu.solvers.filtered import _active_rows
+        from arnoldi_jax.solvers.filtered import _active_rows
 
         assert _active_rows(None, 1e-8, 100) is None  # first sweep
         res = np.full(100, 1.0)
@@ -204,7 +204,7 @@ class TestEigshFiltered:
         assert len(hist.residual_trace) == hist.restarts[0]
 
     def test_laplace_2d_window(self):
-        from arnoldi_tpu.matrices import laplace_2d_eigen
+        from arnoldi_jax.matrices import laplace_2d_eigen
 
         L = laplace_2d(24)
         full = np.sort(laplace_2d_eigen(24))
@@ -373,7 +373,7 @@ class TestEigshWindow:
     def test_3d_interior(self):
         # the target workload: 3-D stencil where shift-invert fill-in
         # explodes; polynomial filtering needs only matvecs.
-        from arnoldi_tpu.matrices import laplace_3d, laplace_3d_eigen
+        from arnoldi_jax.matrices import laplace_3d, laplace_3d_eigen
 
         L = laplace_3d(16)  # n = 4096
         full = np.sort(laplace_3d_eigen(16))
@@ -393,7 +393,7 @@ class TestFilteredMesh:
 
     @pytest.fixture(scope="class")
     def mesh(self):
-        from arnoldi_tpu.parallel import make_mesh
+        from arnoldi_jax.parallel import make_mesh
 
         assert len(jax.devices()) >= 8
         return make_mesh(8)

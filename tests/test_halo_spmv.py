@@ -8,9 +8,9 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from arnoldi_tpu.linop import as_operator
-from arnoldi_tpu.matrices import laplace, laplace_2d
-from arnoldi_tpu.parallel import (
+from arnoldi_jax.linop import as_operator
+from arnoldi_jax.matrices import laplace, laplace_2d
+from arnoldi_jax.parallel import (
     banded_matvec_halo,
     halo_matvec_closure,
     make_mesh,
@@ -54,7 +54,7 @@ def test_zero_halo_diagonal(mesh, overlap):
     # kernels (banded/ell/bsr, f32 and dw) must treat 0 as "no exchange".
     import scipy.sparse as sp
 
-    from arnoldi_tpu.parallel import bsr_matvec_halo, ell_matvec_halo
+    from arnoldi_jax.parallel import bsr_matvec_halo, ell_matvec_halo
 
     n = 512
     d = np.linspace(1.0, 2.0, n)
@@ -79,7 +79,7 @@ def test_zero_halo_diagonal(mesh, overlap):
 def test_zero_halo_dw(mesh):
     import scipy.sparse as sp
 
-    from arnoldi_tpu.parallel import banded_matvec_halo_dw
+    from arnoldi_jax.parallel import banded_matvec_halo_dw
 
     n = 512
     d = np.linspace(1.0, 2.0, n)
@@ -109,8 +109,8 @@ def test_halo_too_large_raises(mesh):
 
 def test_closure_in_solver(mesh):
     # Use the halo matvec as the operator inside the sharded Lanczos solve.
-    from arnoldi_tpu.solvers.lanczos import partial_eigh
-    from arnoldi_tpu.matrices import laplace_eigen
+    from arnoldi_jax.solvers.lanczos import partial_eigh
+    from arnoldi_jax.matrices import laplace_eigen
 
     n = 1024
     op = as_operator(laplace(n).tocsr())
@@ -132,8 +132,8 @@ class TestScatteredHalo:
     single-device matvec with NO all-gather in the compiled HLO."""
 
     def _mark_ops(self, n_pad=512):
-        from arnoldi_tpu.linop import pad_operator
-        from arnoldi_tpu.matrices import mark
+        from arnoldi_jax.linop import pad_operator
+        from arnoldi_jax.matrices import mark
 
         A = mark(31)  # n=496, bandwidth ~33
         ell = pad_operator(as_operator(A, format="ell"), n_pad)
@@ -142,7 +142,7 @@ class TestScatteredHalo:
 
     @pytest.mark.parametrize("overlap", [False, True])
     def test_ell_matches_single_device(self, mesh, overlap):
-        from arnoldi_tpu.parallel import ell_matvec_halo
+        from arnoldi_jax.parallel import ell_matvec_halo
 
         A, ell, _ = self._mark_ops()
         sop = shard_operator(ell, mesh)
@@ -153,7 +153,7 @@ class TestScatteredHalo:
 
     @pytest.mark.parametrize("overlap", [False, True])
     def test_bsr_matches_single_device(self, mesh, overlap):
-        from arnoldi_tpu.parallel import bsr_matvec_halo
+        from arnoldi_jax.parallel import bsr_matvec_halo
 
         A, _, bsr = self._mark_ops()
         sop = shard_operator(bsr, mesh)
@@ -171,7 +171,7 @@ class TestScatteredHalo:
         # appears before the first use of a ppermute output ... simplest
         # robust proxy: the closed jaxpr printed form must contain a
         # dot_general BEFORE the first concatenate of the halo buffers.
-        from arnoldi_tpu.parallel import bsr_matvec_halo
+        from arnoldi_jax.parallel import bsr_matvec_halo
 
         _, _, bsr = self._mark_ops()
         sop = shard_operator(bsr, mesh)
@@ -194,8 +194,8 @@ class TestScatteredHalo:
         # HLO must use collective-permute (ring halo) and all-reduce
         # (psum'd dot products) but NEVER all-gather.
         from jax.sharding import NamedSharding
-        from arnoldi_tpu.parallel import halo_matvec_closure
-        from arnoldi_tpu.solvers.decomposition import _expand_jit
+        from arnoldi_jax.parallel import halo_matvec_closure
+        from arnoldi_jax.solvers.decomposition import _expand_jit
 
         _, _, bsr = self._mark_ops()
         sop = shard_operator(bsr, mesh)
@@ -224,10 +224,10 @@ class TestScatteredHalo:
     def test_ell_halo_solver_end_to_end(self, mesh):
         # Full sharded Krylov-Schur over the ELL halo closure matches the
         # single-device solve.
-        from arnoldi_tpu import partial_schur
-        from arnoldi_tpu.parallel import halo_matvec_closure
-        from arnoldi_tpu.matrices import mark
-        from arnoldi_tpu.utils.sorting import arg_largest_real
+        from arnoldi_jax import partial_schur
+        from arnoldi_jax.parallel import halo_matvec_closure
+        from arnoldi_jax.matrices import mark
+        from arnoldi_jax.utils.sorting import arg_largest_real
 
         A, ell, _ = self._mark_ops()
         sop = shard_operator(ell, mesh)
@@ -246,7 +246,7 @@ class TestDwHalo:
     (ring ppermute for both limbs, compensated per-shard accumulation)."""
 
     def _dw_x(self, n, seed):
-        from arnoldi_tpu.ops.df32 import dw_from_f64
+        from arnoldi_jax.ops.df32 import dw_from_f64
 
         x = np.random.default_rng(seed).standard_normal(n)
         xh, xl = dw_from_f64(x)
@@ -254,15 +254,15 @@ class TestDwHalo:
 
     @pytest.mark.parametrize("fmt", ["banded", "ell", "bsr"])
     def test_matches_single_device_dw(self, mesh, fmt):
-        from arnoldi_tpu.linop import pad_operator
-        from arnoldi_tpu.matrices import mark
-        from arnoldi_tpu.ops.df32 import dw_to_f64
-        from arnoldi_tpu.ops.df32_linop import dw_matvec
-        from arnoldi_tpu.parallel import (banded_matvec_halo_dw,
+        from arnoldi_jax.linop import pad_operator
+        from arnoldi_jax.matrices import mark
+        from arnoldi_jax.ops.df32 import dw_to_f64
+        from arnoldi_jax.ops.df32_linop import dw_matvec
+        from arnoldi_jax.parallel import (banded_matvec_halo_dw,
                                           bsr_matvec_halo_dw,
                                           ell_matvec_halo_dw,
                                           shard_operator)
-        from arnoldi_tpu.solvers.refine import (
+        from arnoldi_jax.solvers.refine import (
             build_cast_residual_operator, cast_operator_f32)
 
         A = (laplace(512).tocsr() if fmt == "banded"
@@ -272,7 +272,7 @@ class TestDwHalo:
         op32 = cast_operator_f32(op64)
         op_lo = build_cast_residual_operator(A, op32)  # may be None
         if op_lo is not None:
-            from arnoldi_tpu.linop import pad_operator as _pad
+            from arnoldi_jax.linop import pad_operator as _pad
 
             op_lo = _pad(op_lo, 512)
         sop = shard_operator(op32, mesh)
@@ -294,13 +294,13 @@ class TestDwHalo:
         # Full sharded Krylov-Schur + dw refinement over the BSR halo
         # closure: 1e-8 residuals against the TRUE f64 matrix with ring
         # comms only.
-        from arnoldi_tpu import partial_schur
-        from arnoldi_tpu.linop import pad_operator
-        from arnoldi_tpu.matrices import mark
-        from arnoldi_tpu.parallel import halo_matvec_closure, shard_operator
-        from arnoldi_tpu.solvers.refine import (
+        from arnoldi_jax import partial_schur
+        from arnoldi_jax.linop import pad_operator
+        from arnoldi_jax.matrices import mark
+        from arnoldi_jax.parallel import halo_matvec_closure, shard_operator
+        from arnoldi_jax.solvers.refine import (
             build_cast_residual_operator, cast_operator_f32)
-        from arnoldi_tpu.utils.sorting import arg_largest_real
+        from arnoldi_jax.utils.sorting import arg_largest_real
 
         A = mark(31)
         op64 = pad_operator(as_operator(A, format=("bsr", (8, 8))), 512)
@@ -322,11 +322,11 @@ class TestDwHalo:
         # The no-all-gather proof for the REFINEMENT tier: the dw Arnoldi
         # expansion over the halo closure must compile to ring
         # collective-permutes + all-reduces only.
-        from arnoldi_tpu.linop import pad_operator
-        from arnoldi_tpu.matrices import mark
-        from arnoldi_tpu.parallel import halo_matvec_closure, shard_operator
-        from arnoldi_tpu.parallel.sharded import shard_workspace
-        from arnoldi_tpu.solvers.refine import (_dw_expand_impl,
+        from arnoldi_jax.linop import pad_operator
+        from arnoldi_jax.matrices import mark
+        from arnoldi_jax.parallel import halo_matvec_closure, shard_operator
+        from arnoldi_jax.parallel.sharded import shard_workspace
+        from arnoldi_jax.solvers.refine import (_dw_expand_impl,
                                                 cast_operator_f32)
 
         A = mark(31)

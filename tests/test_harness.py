@@ -6,14 +6,14 @@ import os
 import numpy as np
 import pytest
 
-from arnoldi_tpu.harness import (
+from arnoldi_jax.harness import (
     EigensolverParameters,
-    arnoldi_tpu_eig,
+    arnoldi_jax_eig,
     arpack_eig,
     find_best_matching,
     matrix_from_spec,
 )
-from arnoldi_tpu.harness.suite import clement_matrix, deflation_eig, grcar_matrix
+from arnoldi_jax.harness.suite import clement_matrix, deflation_eig, grcar_matrix
 
 
 def test_matrix_specs():
@@ -43,7 +43,7 @@ def test_drivers_agree():
     params = EigensolverParameters(nev=3, ncv=12, tol=1e-9,
                                    max_restarts=5000, which="LR")
     r_vals, _, r_stats = arpack_eig(A, params)
-    vals, vecs, stats = arnoldi_tpu_eig(A, params, key=jax.random.key(0))
+    vals, vecs, stats = arnoldi_jax_eig(A, params, key=jax.random.key(0))
     d_vals, d_vecs, d_stats = deflation_eig(A, params, key=jax.random.key(0))
 
     a, b = find_best_matching(np.asarray(vals), r_vals)
@@ -56,7 +56,7 @@ def test_drivers_agree():
 
 
 def test_eigenvalues_match_boundary_ties():
-    from arnoldi_tpu.harness.suite import eigenvalues_match
+    from arnoldi_jax.harness.suite import eigenvalues_match
 
     # Exact agreement passes.
     a = np.array([1.0, -1.0, 0.9977, 0.99, 0.98])
@@ -87,7 +87,7 @@ def test_eigenvalues_match_boundary_ties():
 
 
 def test_compare_arpack_cli(capsys):
-    from arnoldi_tpu.harness import compare_arpack
+    from arnoldi_jax.harness import compare_arpack
 
     rc = compare_arpack.main(["mark:20", "--nev", "3", "--which", "LR",
                               "--tol", "1e-8"])
@@ -98,7 +98,7 @@ def test_compare_arpack_cli(capsys):
 
 
 def test_stress_test_cli(tmp_path):
-    from arnoldi_tpu.harness import stress_test
+    from arnoldi_jax.harness import stress_test
 
     out = tmp_path / "stress.csv"
     rc = stress_test.main(["mark:12", "-o", str(out), "--quick"])
@@ -112,7 +112,7 @@ def test_stress_test_cli(tmp_path):
 
 
 def test_bench_partial_schur_cli(capsys):
-    from arnoldi_tpu.harness import bench_partial_schur
+    from arnoldi_jax.harness import bench_partial_schur
 
     rc = bench_partial_schur.main(["mark:15", "--nev", "3", "--tol", "1e-8"])
     assert rc == 0
@@ -127,7 +127,7 @@ def test_slepc_gracefully_unavailable():
         pytest.skip("slepc4py actually installed")
     except ImportError:
         pass
-    from arnoldi_tpu.harness import slepc
+    from arnoldi_jax.harness import slepc
 
     with pytest.raises(ImportError, match="petsc4py/slepc4py"):
         slepc.slepc_eig(matrix_from_spec("mark:10"),
@@ -138,12 +138,12 @@ def test_reference_implementation_method():
     """The reference implementation itself runs as a harness method
     (arnoldi-py-ref) from a shared v0 and agrees with ARPACK and with this
     framework's driver."""
-    from arnoldi_tpu.harness.suite import (_reference_package,
+    from arnoldi_jax.harness.suite import (_reference_package,
                                            arnoldi_py_ref_eig, arpack_eig,
-                                           arnoldi_tpu_eig,
+                                           arnoldi_jax_eig,
                                            eigenvalues_match)
-    from arnoldi_tpu.utils.random import rand_normalized_vector
-    import arnoldi_tpu.harness.suite as suite_mod
+    from arnoldi_jax.utils.random import rand_normalized_vector
+    import arnoldi_jax.harness.suite as suite_mod
 
     if _reference_package() is None:
         pytest.skip("reference package not importable")
@@ -160,7 +160,7 @@ def test_reference_implementation_method():
     assert res.max() < 1e-6
     vals_arp, _, _ = arpack_eig(A, params, v0=v0)
     assert eigenvalues_match(vals_ref, vals_arp, "LR")
-    vals_ours, _, _ = arnoldi_tpu_eig(A, params, key=jax.random.key(0))
+    vals_ours, _, _ = arnoldi_jax_eig(A, params, key=jax.random.key(0))
     assert eigenvalues_match(vals_ours, vals_ref, "LR")
     # the monkeypatched start-vector hook must be restored
     import arnoldi.krylov_schur as ref_ks

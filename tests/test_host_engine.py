@@ -10,9 +10,9 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from arnoldi_tpu.matrices import mark
-from arnoldi_tpu.native import host_engine
-from arnoldi_tpu.solvers.decomposition import host_arnoldi_expand
+from arnoldi_jax.matrices import mark
+from arnoldi_jax.native import host_engine
+from arnoldi_jax.solvers.decomposition import host_arnoldi_expand
 
 pytestmark = pytest.mark.skipif(
     not host_engine.available(), reason="native host engine not built")
@@ -110,7 +110,7 @@ def test_breakdown_contract():
 def test_full_solve_parity_engine_vs_numpy(monkeypatch):
     import jax
 
-    from arnoldi_tpu.solvers.krylov_schur import (
+    from arnoldi_jax.solvers.krylov_schur import (
         eigenpairs_from_partial_schur, partial_schur)
 
     A = mark(40)

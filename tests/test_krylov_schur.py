@@ -8,10 +8,10 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from arnoldi_tpu import partial_schur
-from arnoldi_tpu.solvers.krylov_schur import eigenpairs_from_partial_schur
-from arnoldi_tpu.matrices import laplace, mark
-from arnoldi_tpu.utils.sorting import arg_largest_magnitude, arg_largest_real
+from arnoldi_jax import partial_schur
+from arnoldi_jax.solvers.krylov_schur import eigenpairs_from_partial_schur
+from arnoldi_jax.matrices import laplace, mark
+from arnoldi_jax.utils.sorting import arg_largest_magnitude, arg_largest_real
 
 from common import find_best_matching
 
@@ -131,7 +131,7 @@ class TestPartialSchur:
         np.testing.assert_allclose(res, 0, rtol=1e-4, atol=1e-7)
 
     def test_float32_path(self):
-        # The TPU fast path: complex64 basis with CGS2, relaxed tolerance.
+        # The float32 path: complex64 basis with CGS2, relaxed tolerance.
         A = mark(10).astype(np.float32)
         Q, T, _ = partial_schur(
             A, 2, stopping_criterion=1e-4, sort_function=arg_largest_real,
@@ -144,7 +144,7 @@ class TestPartialSchur:
 
     def test_laplace_largest(self):
         A = laplace(200)
-        from arnoldi_tpu.matrices import laplace_eigen
+        from arnoldi_jax.matrices import laplace_eigen
 
         Q, T, _ = partial_schur(
             A, 4, sort_function=arg_largest_real, max_restarts=2000,
@@ -162,7 +162,7 @@ class TestHardLocking:
         and return a globally sorted T (the exit reorder)."""
         import scipy.sparse as sp
 
-        from arnoldi_tpu.utils.sorting import sort_function_for
+        from arnoldi_jax.utils.sorting import sort_function_for
 
         n = 3000
         d = np.linspace(0.1, 1.0, n) ** 2

@@ -8,8 +8,8 @@ import pytest
 import scipy.sparse as sp
 from scipy.sparse.linalg import eigsh
 
-from arnoldi_tpu.matrices import laplace, laplace_2d, laplace_2d_eigen, laplace_eigen
-from arnoldi_tpu.solvers.lanczos import partial_eigh
+from arnoldi_jax.matrices import laplace, laplace_2d, laplace_2d_eigen, laplace_eigen
+from arnoldi_jax.solvers.lanczos import partial_eigh
 
 norm = np.linalg.norm
 
@@ -85,7 +85,7 @@ class TestPartialEigh:
         assert vals.dtype.kind == "f"
 
     def test_sharded(self):
-        from arnoldi_tpu.parallel import make_mesh
+        from arnoldi_jax.parallel import make_mesh
 
         mesh = make_mesh(8)
         A = laplace_2d(16)  # n = 256, divisible by 8

@@ -4,7 +4,7 @@
 import numpy as np
 import numpy.linalg as nlin
 
-from arnoldi_tpu.matrices import (
+from arnoldi_jax.matrices import (
     laplace,
     laplace_2d,
     laplace_2d_eigen,
@@ -80,7 +80,7 @@ class TestLaplace:
 
 
 def test_laplace_3d_golden():
-    from arnoldi_tpu.matrices import laplace_3d, laplace_3d_eigen
+    from arnoldi_jax.matrices import laplace_3d, laplace_3d_eigen
 
     A = laplace_3d(7)
     w = np.linalg.eigvalsh(np.asarray(A.todense()))

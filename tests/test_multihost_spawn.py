@@ -2,8 +2,8 @@
 
 Spawns N local CPU processes that initialize ``jax.distributed`` against a
 localhost coordinator (gloo collectives) and run a sharded ``partial_schur``
-over the resulting multi-process mesh — the configuration a TPU pod runs,
-minus the hardware.  This is the test the in-process virtual-device suite
+over the resulting multi-process mesh — the configuration a multi-host
+deployment runs, minus the hardware.  This is the test the in-process virtual-device suite
 cannot provide: it exercises process_index interleaving, mesh ordering
 across processes, and cross-process collectives for real.
 

@@ -6,7 +6,7 @@ entries) that stress the QR iteration's deflation and rotation safety."""
 import numpy as np
 import pytest
 
-from arnoldi_tpu.native import dense_tier as nat
+from arnoldi_jax.native import dense_tier as nat
 
 pytestmark = pytest.mark.skipif(
     not nat.available(), reason="native dense tier failed to build"
@@ -95,7 +95,7 @@ def test_complex64_dtype_contract():
 def test_dispatch_uses_native(monkeypatch):
     # The ops-layer dispatch must actually reach the native module when the
     # backend is 'auto'.
-    import arnoldi_tpu.ops.dense_tier as dt
+    import arnoldi_jax.ops.dense_tier as dt
 
     assert dt._native() is not None
 
@@ -115,7 +115,7 @@ class TestNativeRealSchur:
                 1, np.abs(A).max())
             assert np.abs(Q.T @ Q - np.eye(n)).max() < 1e-12
             vals = np.sort_complex(np.linalg.eigvals(A))
-            import arnoldi_tpu.ops.dense_tier as dt
+            import arnoldi_jax.ops.dense_tier as dt
 
             got = np.sort_complex(dt.real_schur_eigvals(T))
             np.testing.assert_allclose(got, vals, atol=1e-9, rtol=1e-9)
@@ -139,8 +139,8 @@ class TestNativeRealSchur:
         # boundary; native reorder must match the scipy-trexc fallback.
         import scipy.linalg as sla
 
-        import arnoldi_tpu.ops.dense_tier as dt
-        from arnoldi_tpu.utils.sorting import arg_largest_real
+        import arnoldi_jax.ops.dense_tier as dt
+        from arnoldi_jax.utils.sorting import arg_largest_real
 
         rng = np.random.default_rng(5)
         D = sla.block_diag(
@@ -162,8 +162,8 @@ class TestNativeRealSchur:
             atol=1e-9)
 
     def test_reorder_random_matches_scipy_path(self, monkeypatch):
-        import arnoldi_tpu.ops.dense_tier as dt
-        from arnoldi_tpu.utils.sorting import arg_largest_magnitude
+        import arnoldi_jax.ops.dense_tier as dt
+        from arnoldi_jax.utils.sorting import arg_largest_magnitude
 
         rng = np.random.default_rng(6)
         for trial in range(8):
@@ -184,7 +184,7 @@ class TestNativeRealSchur:
         # singular and the rehearsed similarity cannot zero the sub-block.
         # The native tier must refuse (rc=1 -> RuntimeError) instead of
         # committing a corrupted T; the driver then falls back to LAPACK.
-        from arnoldi_tpu.native import dense_tier as nat
+        from arnoldi_jax.native import dense_tier as nat
         import pytest
 
         if not nat.available():
@@ -211,8 +211,8 @@ class TestNativeRealSchur:
         # ordered_schur_real on a matrix with a DOUBLE complex pair stays
         # a valid Schur form (similarity + orthogonality exact); the
         # eigenvalue split ~sqrt(eps) is the problem's own sensitivity.
-        import arnoldi_tpu.ops.dense_tier as dt
-        from arnoldi_tpu.utils.sorting import arg_largest_real
+        import arnoldi_jax.ops.dense_tier as dt
+        from arnoldi_jax.utils.sorting import arg_largest_real
 
         def rot(a, b):
             return np.array([[a, b], [-b, a]])
@@ -240,7 +240,7 @@ class TestNativeRobustness:
     def test_integer_input_promotes(self):
         # int64 in, float64 out — casting BACK to int returned a truncated
         # non-triangular "Schur factor" with wrong eigenvalues.
-        import arnoldi_tpu.ops.dense_tier as dt
+        import arnoldi_jax.ops.dense_tier as dt
 
         A = np.array([[0, 1, 0], [0, 0, 1], [5, 1, 2]])
         T, Q = dt.schur_real(A)
@@ -254,7 +254,7 @@ class TestNativeRobustness:
         # A top-k (partial) sort order must route to the incremental
         # Python path — the native loop reads order[t] for every t < n
         # (heap over-read / UB before the length gate).
-        import arnoldi_tpu.ops.dense_tier as dt
+        import arnoldi_jax.ops.dense_tier as dt
 
         rng = np.random.default_rng(5)
         A = rng.standard_normal((12, 12)) + 1j * rng.standard_normal((12, 12))
@@ -269,7 +269,7 @@ class TestNativeRobustness:
         # Jordan-like chains multiply the back-substitution column by
         # ~1/(eps*scale) per level; without LAPACK-style rescaling the
         # column overflows and normalizes to NaN.
-        from arnoldi_tpu.native import dense_tier as nat
+        from arnoldi_jax.native import dense_tier as nat
         import pytest
 
         if not nat.available():

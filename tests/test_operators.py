@@ -6,13 +6,13 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from arnoldi_tpu.linop import (
+from arnoldi_jax.linop import (
     BandedOperator,
     DenseOperator,
     EllOperator,
     as_operator,
 )
-from arnoldi_tpu.matrices import laplace, laplace_2d, mark
+from arnoldi_jax.matrices import laplace, laplace_2d, mark
 
 
 def random_sparse(rng, n, density=0.1, complex_=False):
@@ -97,7 +97,7 @@ class TestBsrOperator:
         (lambda: random_sparse(None, 97), (8, 8)),
     ])
     def test_matches_scipy(self, gen, bs, rng):
-        from arnoldi_tpu.linop import BsrOperator
+        from arnoldi_jax.linop import BsrOperator
 
         A = gen()
         op = BsrOperator.from_scipy(A, blocksize=bs)
@@ -111,7 +111,7 @@ class TestBsrOperator:
             np.asarray(op.matmat(jnp.asarray(X))), A @ X, atol=1e-12)
 
     def test_rectangular(self, rng):
-        from arnoldi_tpu.linop import BsrOperator
+        from arnoldi_jax.linop import BsrOperator
 
         A = sp.random(97, 53, density=0.08,
                       random_state=np.random.RandomState(0)).tocsr()
@@ -122,8 +122,8 @@ class TestBsrOperator:
             np.asarray(op.matvec(jnp.asarray(x))), A @ x, atol=1e-12)
 
     def test_in_solver_via_format(self, rng):
-        from arnoldi_tpu import partial_schur
-        from arnoldi_tpu.linop import as_operator
+        from arnoldi_jax import partial_schur
+        from arnoldi_jax.linop import as_operator
 
         op = as_operator(mark(30), format=("bsr", (4, 4)))
         Q, T, _ = partial_schur(op, 3, sort_function="LR",
@@ -141,8 +141,8 @@ def test_padded_layout_guard_and_reflect_edge():
     import pytest
     import scipy.sparse as sp
 
-    from arnoldi_tpu.linop import EllOperator, BsrOperator
-    from arnoldi_tpu.matrices import random_scattered
+    from arnoldi_jax.linop import EllOperator, BsrOperator
+    from arnoldi_jax.matrices import random_scattered
 
     n = 4096
     A = random_scattered(n, 8, seed=2, bandwidth=n // 4, edge="clip")
@@ -152,7 +152,7 @@ def test_padded_layout_guard_and_reflect_edge():
     with pytest.raises(ValueError, match="max row degree"):
         # force past the absolute-size floor by scaling the guard's view:
         # at this n the padded array is small, so call the check directly
-        from arnoldi_tpu.linop import _check_padded_layout
+        from arnoldi_jax.linop import _check_padded_layout
 
         _check_padded_layout("ELL", n * int(deg.max()) * (1 << 14),
                              At.nnz * (1 << 14), int(deg.max()), deg)
@@ -169,7 +169,7 @@ def test_padded_layout_guard_and_reflect_edge():
 def test_random_scattered_reflect_same_spectral_profile():
     """edge='reflect' keeps the generator's contract: dominant separated
     outliers, bulk within coupling of [0, 1]."""
-    from arnoldi_tpu.matrices import random_scattered
+    from arnoldi_jax.matrices import random_scattered
 
     A = random_scattered(800, 8, seed=5, bandwidth=64, edge="reflect")
     vals = np.linalg.eigvals(A.toarray())
@@ -186,8 +186,8 @@ def test_gram_operator_arrays_are_pytree_leaves():
     import jax
     import scipy.sparse as sp
 
-    from arnoldi_tpu.linop import GramOperator, as_operator
-    from arnoldi_tpu.matrices import random_scattered
+    from arnoldi_jax.linop import GramOperator, as_operator
+    from arnoldi_jax.matrices import random_scattered
 
     A = random_scattered(512, 8, seed=1, bandwidth=64, edge="reflect")
     op = as_operator(sp.csr_matrix(A))
@@ -203,3 +203,37 @@ def test_gram_operator_arrays_are_pytree_leaves():
     fn = jax.jit(lambda g, v: g.matvec(v))
     text = fn.lower(gram, jnp.asarray(x)).as_text()
     assert len(text) < 500_000  # a constant-embedded program is megabytes
+
+
+#: The shapes the removed Pallas kernels were tested at, now run through
+#: each format's XLA path: stencils of several widths (banded), a
+#: rectangular matrix (ELL), and Markov matrices whose size is and is not a
+#: multiple of the 8x8 block (BSR).
+FORMAT_CASES = {
+    "banded-laplace777": ("banded", lambda: laplace(777).tocsr(), np.float32),
+    "banded-laplace2d40": ("banded", lambda: laplace_2d(40), np.float32),
+    "banded-laplace2d33x20": ("banded", lambda: laplace_2d(33, 20),
+                              np.float32),
+    "banded-laplace300-f64": ("banded", lambda: laplace(300).tocsr(),
+                              np.float64),
+    "ell-rect120x80": ("ell", lambda: sp.random(
+        120, 80, density=0.15, random_state=0, format="csr"), np.float32),
+    "bsr-mark60": ("bsr", lambda: mark(60), np.float32),
+    "bsr-mark20": ("bsr", lambda: mark(20), np.float32),
+}
+
+
+@pytest.mark.parametrize("kind", ["matvec", "matmat"])
+@pytest.mark.parametrize("case", list(FORMAT_CASES))
+def test_format_xla_path_matches_scipy(case, kind):
+    fmt, gen, dtype = FORMAT_CASES[case]
+    A = gen()
+    op = as_operator(A, dtype=dtype, format=fmt)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((A.shape[1], 3) if kind == "matmat"
+                            else A.shape[1]).astype(dtype)
+    y = getattr(op, kind)(jnp.asarray(x))
+    assert y.dtype == dtype
+    tol = 1e-5 if dtype == np.float32 else 1e-12
+    np.testing.assert_allclose(np.asarray(y), A @ x.astype(np.float64),
+                               rtol=tol, atol=tol)

@@ -1,12 +1,12 @@
 """Orthogonalization kernel tests: orthogonality, DGKS second pass,
-breakdown detection, and active-column masking (the TPU static-shape
+breakdown detection, and active-column masking (the static-shape
 contract)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from arnoldi_tpu.ops.ortho import ORTHO_KERNELS, cgs_dgks, mgs_dgks
+from arnoldi_jax.ops.ortho import ORTHO_KERNELS, cgs_dgks, mgs_dgks
 
 KERNELS = [cgs_dgks, mgs_dgks]
 

@@ -7,15 +7,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from arnoldi_tpu import as_operator, partial_schur
-from arnoldi_tpu.matrices import laplace, mark
-from arnoldi_tpu.parallel import (
+from arnoldi_jax import as_operator, partial_schur
+from arnoldi_jax.matrices import laplace, mark
+from arnoldi_jax.parallel import (
     make_mesh,
     shard_operator,
     shard_workspace,
     sharded_partial_schur,
 )
-from arnoldi_tpu.utils.sorting import arg_largest_real
+from arnoldi_jax.utils.sorting import arg_largest_real
 
 norm = np.linalg.norm
 
@@ -31,7 +31,7 @@ def test_mesh_has_8_devices(mesh):
 
 
 def test_shard_operator_partitions_rows(mesh):
-    from arnoldi_tpu.linop import pad_operator
+    from arnoldi_jax.linop import pad_operator
 
     op = as_operator(mark(50))  # n = 1275, padded to 1280 for 8 shards
     padded = pad_operator(op, 1280)
@@ -105,7 +105,7 @@ def test_sharded_float32_real_path(mesh):
 def test_scaling_bench_mechanism(mesh):
     # Virtual CPU devices share one core, so only the MECHANISM is under
     # test: runs per device count, reports rates and efficiencies.
-    from arnoldi_tpu.harness.scaling_bench import run_scaling
+    from arnoldi_jax.harness.scaling_bench import run_scaling
 
     results = run_scaling(n_grid=60, device_counts=(1, 2), max_dim=12,
                           cycles=1)
@@ -115,7 +115,7 @@ def test_scaling_bench_mechanism(mesh):
 
 
 def test_multihost_helpers(mesh):
-    from arnoldi_tpu.parallel.multihost import (
+    from arnoldi_jax.parallel.multihost import (
         initialize,
         make_slice_mesh,
         process_local_rows,
@@ -152,7 +152,7 @@ def test_multihost_helpers(mesh):
 def test_scaling_bench_scattered_halo(mesh):
     # BSR-8 halo path through the scaling mechanism (the round-1 VERDICT
     # noted the gather fallback would sink scaling; this path rings).
-    from arnoldi_tpu.harness.scaling_bench import run_scaling
+    from arnoldi_jax.harness.scaling_bench import run_scaling
 
     results = run_scaling(n_grid=32, device_counts=(1, 2), max_dim=10,
                           cycles=1, matrix="scattered")
@@ -184,8 +184,8 @@ def test_sharded_refine_reaches_1e8(mesh):
 
 
 def test_sharded_refine_banded(mesh):
-    from arnoldi_tpu.solvers.lanczos import partial_eigh
-    from arnoldi_tpu.matrices import laplace, laplace_eigen
+    from arnoldi_jax.solvers.lanczos import partial_eigh
+    from arnoldi_jax.matrices import laplace, laplace_eigen
 
     n = 1024
     A = laplace(n).tocsr()

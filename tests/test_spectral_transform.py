@@ -7,8 +7,8 @@ import pytest
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
-from arnoldi_tpu.matrices import laplace, laplace_2d, laplace_eigen, mark
-from arnoldi_tpu.solvers.spectral_transform import (
+from arnoldi_jax.matrices import laplace, laplace_2d, laplace_eigen, mark
+from arnoldi_jax.solvers.spectral_transform import (
     eigs,
     eigsh,
     shift_invert_operator,
@@ -92,7 +92,7 @@ class TestShiftInvertRobustness:
     def _interior_setup(self):
         import scipy.sparse.linalg as spla
 
-        from arnoldi_tpu.matrices import laplace
+        from arnoldi_jax.matrices import laplace
 
         L = laplace(400).tocsr()  # spectrum in (-4, 0)
         sigma = -2.0              # interior: A - sigma I is INDEFINITE
@@ -100,7 +100,7 @@ class TestShiftInvertRobustness:
         return L, sigma, ref
 
     def test_eigsh_interior_shift_splu(self):
-        from arnoldi_tpu import eigsh
+        from arnoldi_jax import eigsh
 
         L, sigma, ref = self._interior_setup()
         vals, vecs = eigsh(L, 6, sigma=sigma, inner_solver="splu",
@@ -111,7 +111,7 @@ class TestShiftInvertRobustness:
         np.testing.assert_allclose(res, 0, atol=1e-6)
 
     def test_eigsh_interior_shift_gmres(self):
-        from arnoldi_tpu import eigsh
+        from arnoldi_jax import eigsh
 
         L, sigma, ref = self._interior_setup()
         vals, _ = eigsh(L, 6, sigma=sigma, inner_solver="gmres",
@@ -124,7 +124,7 @@ class TestShiftInvertRobustness:
         # spectrum) so the interior eigenvalues are well-conditioned; mark
         # matrices' interior clusters are too non-normal for tight
         # cross-solver agreement (even ARPACK's residuals are ~1e-3 there).
-        from arnoldi_tpu import eigs
+        from arnoldi_jax import eigs
 
         rng = np.random.default_rng(2)
         import scipy.linalg as sla
@@ -147,9 +147,9 @@ class TestShiftInvertRobustness:
         np.testing.assert_allclose(res, 0, atol=1e-8)
 
     def test_inner_stats_splu(self):
-        from arnoldi_tpu.solvers.spectral_transform import (
+        from arnoldi_jax.solvers.spectral_transform import (
             shift_invert_operator)
-        from arnoldi_tpu.matrices import laplace
+        from arnoldi_jax.matrices import laplace
 
         L = laplace(100).tocsr()
         op = shift_invert_operator(L, -2.0, solver="splu")
@@ -160,9 +160,9 @@ class TestShiftInvertRobustness:
         assert op.inner_stats.solves == 1
 
     def test_inner_stats_iterative(self):
-        from arnoldi_tpu.solvers.spectral_transform import (
+        from arnoldi_jax.solvers.spectral_transform import (
             shift_invert_operator)
-        from arnoldi_tpu.matrices import laplace
+        from arnoldi_jax.matrices import laplace
 
         L = laplace(60).tocsr()
         op = shift_invert_operator(L, 1.0, solver="cg", count_inner=True,
@@ -186,7 +186,7 @@ class TestRealifiedAdversarial:
     realified spectrum then contains four values in two tight clusters)."""
 
     def test_near_conjugate_distinct_pair(self):
-        from arnoldi_tpu import eigs_realified
+        from arnoldi_jax import eigs_realified
 
         rng = np.random.default_rng(11)
         # lam1 and lam2 are nearly mutual conjugates but DISTINCT
@@ -209,7 +209,7 @@ class TestRealifiedAdversarial:
         np.testing.assert_allclose(res, 0, atol=1e-8)
 
     def test_tight_cluster(self):
-        from arnoldi_tpu import eigs_realified
+        from arnoldi_jax import eigs_realified
 
         rng = np.random.default_rng(12)
         lams = np.array([1.0 + 1e-7j, 1.0 - 2e-7j, 1.0 + 3e-7j,
@@ -262,7 +262,7 @@ class TestStartVectorV0:
         np.testing.assert_allclose(a, b, rtol=1e-7, atol=1e-8)
 
     def test_svds_v0(self):
-        from arnoldi_tpu import svds
+        from arnoldi_jax import svds
 
         rng = np.random.default_rng(5)
         A = rng.standard_normal((40, 90))  # wide: gram dim = 40
@@ -273,7 +273,7 @@ class TestStartVectorV0:
         np.testing.assert_allclose(A @ Vh.conj().T, U * s, atol=1e-7)
 
     def test_realified_v0_complex(self):
-        from arnoldi_tpu import eigs_realified
+        from arnoldi_jax import eigs_realified
 
         rng = np.random.default_rng(6)
         lams = np.array([2.0 + 1.0j, -1.5 + 0.5j, 0.3 - 0.8j,

@@ -7,8 +7,8 @@ import pytest
 import scipy.linalg as sla
 import scipy.sparse as sp
 
-from arnoldi_tpu import eigs, svds
-from arnoldi_tpu.matrices import laplace
+from arnoldi_jax import eigs, svds
+from arnoldi_jax.matrices import laplace
 
 
 class TestSvds:
@@ -64,10 +64,11 @@ class TestSvds:
         np.testing.assert_allclose(A @ Vh.conj().T, U * s, atol=1e-7)
 
     def test_bsr_adjoint_matvec(self):
-        # svds over an explicitly-BSR operator (the auto-selected TPU
-        # format) exercises the block scatter-add adjoint.
-        from arnoldi_tpu.linop import BsrOperator
-        from arnoldi_tpu.solvers.svd import _rmatvec
+        # svds over an explicitly-BSR operator (the default format for
+        # dense-tile scattered sparsity) exercises the block scatter-add
+        # adjoint.
+        from arnoldi_jax.linop import BsrOperator
+        from arnoldi_jax.solvers.svd import _rmatvec
 
         rng = np.random.default_rng(6)
         S = sp.random(48, 30, density=0.2, random_state=np.random.RandomState(6)).tocsr()
@@ -140,7 +141,7 @@ class TestGeneralized:
 
     def test_eigsh_generalized_la_sa(self):
         """eigsh(M=) — scipy's symmetric-definite pencil surface."""
-        from arnoldi_tpu import eigsh
+        from arnoldi_jax import eigsh
 
         n = 80
         A = laplace(n).tocsr()
@@ -159,7 +160,7 @@ class TestGeneralized:
                                        atol=1e-6)
 
     def test_eigsh_generalized_shift_invert(self):
-        from arnoldi_tpu import eigsh
+        from arnoldi_jax import eigsh
 
         n = 60
         A = laplace(n).tocsr()
@@ -175,7 +176,7 @@ class TestGeneralized:
 
     def test_eigsh_be_standard_and_generalized(self):
         """which='BE' — k//2 low + (k - k//2) high ends, ascending."""
-        from arnoldi_tpu import eigsh
+        from arnoldi_jax import eigsh
 
         n = 80
         A = laplace(n).tocsr()
@@ -200,8 +201,8 @@ class TestGeneralized:
         inner Krylov solves on both eigs and eigsh."""
         from scipy.sparse.linalg import splu
 
-        from arnoldi_tpu import eigsh
-        from arnoldi_tpu.linop import CallableOperator
+        from arnoldi_jax import eigsh
+        from arnoldi_jax.linop import CallableOperator
 
         n = 60
         A = laplace(n).tocsr()
@@ -260,7 +261,7 @@ class TestGeneralized:
     def test_eigsh_mode_guard(self):
         # buckling/cayley are IMPLEMENTED (TestSpectralModes); only an
         # unknown mode string rejects now.
-        from arnoldi_tpu import eigsh
+        from arnoldi_jax import eigsh
 
         A = laplace(20).tocsr()
         B = sp.eye_array(20).tocsr()
@@ -298,8 +299,8 @@ class TestReviewRegressions:
         )
 
     def test_eigsh_scipy_contracts(self):
-        from arnoldi_tpu import eigsh
-        from arnoldi_tpu.matrices import laplace_eigen
+        from arnoldi_jax import eigsh
+        from arnoldi_jax.matrices import laplace_eigen
 
         A = laplace(64).tocsr()
         v, vecs = eigsh(A, 4, which="LA", tol=1e-9, maxiter=3000)
@@ -320,13 +321,13 @@ class TestReviewRegressions:
 
 
 class TestRealified:
-    """Complex eigenproblems in pure real arithmetic (the TPU route)."""
+    """Complex eigenproblems in pure real arithmetic (the realified route)."""
 
     def test_dense_complex_matches_arpack(self):
         rng = np.random.default_rng(0)
         n = 60
         A = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
-        from arnoldi_tpu import eigs_realified
+        from arnoldi_jax import eigs_realified
 
         vals, vecs = eigs_realified(A, 4, which="LM", tol=1e-9,
                                     maxiter=5000, key=jax.random.key(0))
@@ -346,7 +347,7 @@ class TestRealified:
              + 1j * sp.random(200, 200, density=0.05,
                               random_state=np.random.RandomState(2))
              + sp.diags_array(np.ones(200))).tocsr()
-        from arnoldi_tpu import eigs_realified
+        from arnoldi_jax import eigs_realified
 
         vals, vecs = eigs_realified(S, 3, which="LM", tol=1e-9,
                                     maxiter=5000, key=jax.random.key(1))
@@ -357,7 +358,7 @@ class TestRealified:
         np.testing.assert_allclose(res, 0, atol=1e-7)
 
     def test_realify_rejects_real(self):
-        from arnoldi_tpu import realify_operator
+        from arnoldi_jax import realify_operator
 
         with pytest.raises(TypeError):
             realify_operator(np.eye(5))
@@ -365,7 +366,7 @@ class TestRealified:
     def test_eigsh_sigma_which_la_scipy_semantics(self):
         import scipy.sparse.linalg as spla
 
-        from arnoldi_tpu import eigsh
+        from arnoldi_jax import eigsh
 
         A = sp.diags_array(np.array([1.0, 2, 3, 4, 7, 9, 11])).tocsr()
         ours = eigsh(A, 2, sigma=5.0, which="LA", tol=1e-10, maxiter=2000)[0]
@@ -373,7 +374,7 @@ class TestRealified:
         np.testing.assert_allclose(np.sort(ours), np.sort(ref), rtol=1e-8)
 
     def test_realified_li_raises(self):
-        from arnoldi_tpu import eigs_realified
+        from arnoldi_jax import eigs_realified
 
         rng = np.random.default_rng(1)
         A = rng.standard_normal((12, 12)) + 1j * rng.standard_normal((12, 12))
@@ -381,7 +382,7 @@ class TestRealified:
             eigs_realified(A, 2, which="LI")
 
     def test_realified_multiplicity_and_ncv(self):
-        from arnoldi_tpu import eigs_realified
+        from arnoldi_jax import eigs_realified
 
         rng = np.random.default_rng(1)
         Z = np.diag([3 + 2j, 3 + 2j, 1 - 1j, 0.5 + 0.1j, -2 + 0j,
@@ -404,7 +405,7 @@ class TestSpectralModes:
     """ARPACK generalized transforms (scipy eigsh mode=) and svds sigma."""
 
     def _pencil(self, n=60):
-        from arnoldi_tpu.matrices import laplace
+        from arnoldi_jax.matrices import laplace
 
         A = (-laplace(n)).tocsr()          # SPD
         M = sp.diags_array(np.linspace(1, 2, n)).tocsr()
@@ -414,7 +415,7 @@ class TestSpectralModes:
     def test_mode_matches_scipy(self, mode):
         import scipy.sparse.linalg as ssla
 
-        from arnoldi_tpu import eigsh
+        from arnoldi_jax import eigsh
 
         A, M = self._pencil()
         sigma = 1.5
@@ -437,7 +438,7 @@ class TestSpectralModes:
     def test_mode_opinv_explicit(self, mode):
         from scipy.sparse.linalg import LinearOperator, splu
 
-        from arnoldi_tpu import eigsh
+        from arnoldi_jax import eigsh
 
         A, M = self._pencil()
         sigma = 1.5
@@ -457,7 +458,7 @@ class TestSpectralModes:
         assert r.max() < 1e-8
 
     def test_mode_validation(self):
-        from arnoldi_tpu import eigsh
+        from arnoldi_jax import eigsh
 
         A, M = self._pencil(30)
         with pytest.raises(ValueError, match="requires sigma"):
@@ -505,7 +506,7 @@ class TestSpectralModes:
 
 class TestSortSelectors:
     def test_si_selector(self):
-        from arnoldi_tpu.utils.sorting import sort_function_for
+        from arnoldi_jax.utils.sorting import sort_function_for
 
         x = np.array([1 + 2j, 1 - 3j, 0.5 + 0j, -2 - 1j])
         np.testing.assert_array_equal(sort_function_for("SI")(x),
@@ -516,7 +517,7 @@ class TestSortSelectors:
     def test_si_end_to_end(self):
         # eigs(which='SI') on a rotation-like matrix with known imaginary
         # structure: smallest imaginary part = most negative frequencies.
-        from arnoldi_tpu import eigs
+        from arnoldi_jax import eigs
 
         rng = np.random.default_rng(7)
         n = 40
